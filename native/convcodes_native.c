@@ -5,13 +5,13 @@
  * reference: common/encoder.c, AWGN-channel/{viterbi,stack,fano}-decoder.c
  * and the binary-symmetric-channel twins — reimplemented, not copied).
  *
- * Purpose in the TPU framework:
+ * Purpose in the framework:
  *   - fast fuzz oracle for the JAX/Pallas decoders (tests/test_native.py
  *     cross-checks millions of trellis steps beyond the pinned goldens),
  *   - host-side fallback decoder for environments without an accelerator.
  *
- * Built as a shared library via tools/build_native.py; bound with ctypes
- * (convolutional_codes_tpu/utils/native.py).  Batch-level APIs operate on
+ * Built as a shared library on first use and bound with ctypes by
+ * convolutional_codes/utils/native.py.  Batch-level APIs operate on
  * unpacked bit/symbol arrays to mirror the device layout.
  */
 

@@ -2,8 +2,8 @@
 
 This is an *independent reimplementation* (clean-room from the behavioral
 analysis in SURVEY.md, citations inline) of the reference pipeline stages,
-used as the test oracle for the TPU framework.  It is deliberately scalar and
-structured like the spec, not like the TPU code, so agreement between the two
+used as the test oracle for the framework.  It is deliberately scalar and
+structured like the spec, not like the vectorized code, so agreement between the two
 is meaningful.  It was cross-validated bit-for-bit against harnesses compiled
 from the actual C reference (see tools/golden_harness/) before the fixtures
 in tests/goldens/ were pinned.
@@ -15,8 +15,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from convolutional_codes_tpu.models.codebook import Code, PARITY_COMPAT
-from convolutional_codes_tpu.models.constellations import get_constellation
+from convolutional_codes.models.codebook import Code, PARITY_COMPAT
+from convolutional_codes.models.constellations import get_constellation
 
 F32 = np.float32
 _MASK64 = (1 << 64) - 1

@@ -13,8 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from convolutional_codes_tpu.models.codebook import get_code
-from convolutional_codes_tpu.models.constellations import (
+from convolutional_codes.models.codebook import get_code
+from convolutional_codes.models.constellations import (
     get_constellation, min_sq_distance, register_constellation)
 
 
@@ -47,8 +47,8 @@ def _qfunc(x):
 def test_uncoded_16qam_matches_closed_form():
     """Gray 16-QAM uncoded BER = 1/4 [3Q(a/s) + 2Q(3a/s) - Q(5a/s)] per bit
     (per-axis 4-PAM with Gray labels), a = 1/sqrt(10)."""
-    from convolutional_codes_tpu.ops.channels import awgn_sigma
-    from convolutional_codes_tpu.sim.chain import make_uncoded_step
+    from convolutional_codes.ops.channels import awgn_sigma
+    from convolutional_codes.sim.chain import make_uncoded_step
 
     ebn0 = 6.0
     sigma = float(awgn_sigma(ebn0, info_bits_per_symbol=4))
@@ -72,10 +72,10 @@ def test_uncoded_16qam_matches_closed_form():
 def test_k15_r14_16qam_chain_roundtrip():
     """Noiseless mapped chain through the K=15 rate-1/4 code: encoder →
     16-QAM mapper → soft demapper → fano decode recovers the input."""
-    from convolutional_codes_tpu.ops.demapper import soft_demap
-    from convolutional_codes_tpu.ops.encoder import encode
-    from convolutional_codes_tpu.ops.fano import fano_decode_soft
-    from convolutional_codes_tpu.ops.mapper import map_symbols
+    from convolutional_codes.ops.demapper import soft_demap
+    from convolutional_codes.ops.encoder import encode
+    from convolutional_codes.ops.fano import fano_decode_soft
+    from convolutional_codes.ops.mapper import map_symbols
 
     code = get_code("k15-r14-16qam")
     assert code.points_per_symbol == 16
@@ -89,8 +89,8 @@ def test_k15_r14_16qam_chain_roundtrip():
 
 def test_k15_r14_16qam_point_step_runs():
     """One noisy sweep step of the config-5 chain produces sane counters."""
-    from convolutional_codes_tpu.ops.channels import awgn_sigma
-    from convolutional_codes_tpu.sim.chain import make_point_step
+    from convolutional_codes.ops.channels import awgn_sigma
+    from convolutional_codes.sim.chain import make_point_step
 
     code = get_code("k15-r14-16qam")
     step = make_point_step(code, "awgn", "fano", "soft", frames=8,
@@ -101,17 +101,17 @@ def test_k15_r14_16qam_point_step_runs():
 
 
 def test_k15_r14_16qam_fano_weight_tuned():
-    """Regression for the round-3 mistuning (fano_metric_weight=-40): with
+    """Regression for a mistuned weight (fano_metric_weight=-40): with
     16-QAM's ndist = 0.4, E[dist|correct] = 5x the QPSK value at equal
     Eb/N0, and a too-deep weight makes every Fano walk below 12 dB exhaust
-    its budget (the FER=1.0 plateau at 6-9.5 dB the round-3 judge flagged).
+    its budget (a FER=1.0 plateau at 6-9.5 dB).
     With the tuned default, 8 dB decodes must be clean and cheap — no
     timeouts, zero errors, ~1 search step per symbol."""
-    from convolutional_codes_tpu.ops.channels import awgn, awgn_sigma
-    from convolutional_codes_tpu.ops.demapper import soft_demap
-    from convolutional_codes_tpu.ops.encoder import encode
-    from convolutional_codes_tpu.ops.fano import fano_decode_soft_with_diag
-    from convolutional_codes_tpu.ops.mapper import map_symbols
+    from convolutional_codes.ops.channels import awgn, awgn_sigma
+    from convolutional_codes.ops.demapper import soft_demap
+    from convolutional_codes.ops.encoder import encode
+    from convolutional_codes.ops.fano import fano_decode_soft_with_diag
+    from convolutional_codes.ops.mapper import map_symbols
 
     code = get_code("k15-r14-16qam")
     # the tuned weight keeps the correct-path metric positive in
@@ -131,19 +131,22 @@ def test_k15_r14_16qam_fano_weight_tuned():
 
 
 def test_register_overwrite_clears_dependent_caches():
-    """Jitted chain fronts / fused runners traced before a re-registration
-    embed the old point table; overwrite must clear those caches."""
-    from convolutional_codes_tpu.models import constellations as con
-    from convolutional_codes_tpu.parallel.montecarlo import _fused_runner
-    from convolutional_codes_tpu.sim.sweep import _fano_front
+    """Kernels and jitted runners built before a re-registration embed the
+    old point table; overwrite must clear those caches."""
+    from convolutional_codes.models import constellations as con
+    from convolutional_codes.ops import sequential_mc, viterbi_mc
+    from convolutional_codes.parallel.montecarlo import _fused_runner
 
     code = get_code(0)
-    _fano_front(code, "awgn", "soft", 8)
-    assert _fano_front.cache_info().currsize >= 1
+    viterbi_mc._call(code, 64, 64, "awgn", "soft", None, 0, True)
+    sequential_mc._jitted("stack", code, 8, 1, "awgn", "soft", 0)
+    assert viterbi_mc._call.cache_info().currsize >= 1
+    assert sequential_mc._jitted.cache_info().currsize >= 1
     orig = con.get_constellation(code.symlen_out).copy()
     try:
         con.register_constellation(code.symlen_out, orig, overwrite=True)
-        assert _fano_front.cache_info().currsize == 0
+        assert viterbi_mc._call.cache_info().currsize == 0
+        assert sequential_mc._jitted.cache_info().currsize == 0
         assert _fused_runner.cache_info().currsize == 0
     finally:
         con.register_constellation(code.symlen_out, orig, overwrite=True)

@@ -14,7 +14,7 @@ import os
 import numpy as np
 import pytest
 
-from convolutional_codes_tpu.sim.sweep import (
+from convolutional_codes.sim.sweep import (
     SweepSpec, run_sweep, awgn_tier_bits, bsc_tier_bits)
 
 GOLD = json.load(open(os.path.join(os.path.dirname(__file__), "goldens",

@@ -6,11 +6,11 @@ import numpy as np
 import pytest
 
 import golden_model as gm
-from convolutional_codes_tpu.models.codebook import get_code
-from convolutional_codes_tpu.models.constellations import get_constellation, min_sq_distance
-from convolutional_codes_tpu.ops.mapper import map_symbols, map_symbols_m
-from convolutional_codes_tpu.ops.demapper import soft_demap, hard_demap, hard_decide
-from convolutional_codes_tpu.ops.channels import awgn, bsc, awgn_sigma
+from convolutional_codes.models.codebook import get_code
+from convolutional_codes.models.constellations import get_constellation, min_sq_distance
+from convolutional_codes.ops.mapper import map_symbols, map_symbols_m
+from convolutional_codes.ops.demapper import soft_demap, hard_demap, hard_decide
+from convolutional_codes.ops.channels import awgn, bsc, awgn_sigma
 
 
 def test_constellations_unit_power_and_values():
@@ -83,9 +83,9 @@ def test_bpsk_symlen1_code_end_to_end():
     user-defined rate-1/1 K=3 code — the reference ships the table
     (constellations.c:8-11) but no code reaches it."""
     import jax
-    from convolutional_codes_tpu.models.codebook import Code, register_code
-    from convolutional_codes_tpu.ops.encoder import encode
-    from convolutional_codes_tpu.ops.viterbi import viterbi_decode_soft
+    from convolutional_codes.models.codebook import Code, register_code
+    from convolutional_codes.ops.encoder import encode
+    from convolutional_codes.ops.viterbi import viterbi_decode_soft
 
     bpsk_code = Code(name="bpsk-k3", symlen_out=1, constraint_length=3,
                      block_length=32, polynomials=(0b111,), parity="true")

@@ -3,7 +3,7 @@
 import jax
 import numpy as np
 
-from convolutional_codes_tpu.parallel.distributed import (
+from convolutional_codes.parallel.distributed import (
     initialize_from_env, measure_scaling)
 
 
@@ -51,3 +51,11 @@ def test_scaling_efficiency_baseline_not_device1():
     expected = pts[1].bits_per_s / (pts[0].bits_per_s / 2 * 4)
     assert abs(pts[1].efficiency - expected) < 1e-9
     assert pts[1].efficiency > 0
+
+
+def test_dryrun_multichip_virtual_devices():
+    """The multi-device dry run (sweep x frames grid, fused and sequential
+    kernels under shard_map, streaming) on 8 virtual CPU devices."""
+    import __graft_entry__ as g
+
+    g.dryrun_multichip(8, interpret=True)

@@ -5,8 +5,8 @@ import pytest
 
 import golden_model as gm
 from conftest import load_golden
-from convolutional_codes_tpu.models.codebook import get_code
-from convolutional_codes_tpu.ops.encoder import encode
+from convolutional_codes.models.codebook import get_code
+from convolutional_codes.ops.encoder import encode
 
 
 @pytest.mark.parametrize("idx", range(6))

@@ -4,9 +4,9 @@ import numpy as np
 import pytest
 
 from conftest import load_golden
-from convolutional_codes_tpu.models.codebook import get_code
-from convolutional_codes_tpu.ops.encoder import encode
-from convolutional_codes_tpu.ops.fano import fano_decode_soft, fano_decode_hard
+from convolutional_codes.models.codebook import get_code
+from convolutional_codes.ops.encoder import encode
+from convolutional_codes.ops.fano import fano_decode_soft, fano_decode_hard
 
 ALL_CODES = [0, 1, 2, 3, 4, 5]
 
@@ -45,7 +45,7 @@ def test_noiseless_roundtrip(idx):
 
 
 def test_diagnostics_report_timeouts_and_metric():
-    from convolutional_codes_tpu.ops.fano import fano_decode_soft_with_diag
+    from convolutional_codes.ops.fano import fano_decode_soft_with_diag
 
     code = get_code(0)
     rng = np.random.default_rng(4)

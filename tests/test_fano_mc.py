@@ -1,10 +1,12 @@
-"""Fused Fano MC kernel (in-kernel lane refill): exactness + determinism.
+"""Fano Monte-Carlo through the one-frame-per-thread kernel
+(ops/sequential_mc, native/seq_decode.cu built for the CPU): exactness +
+determinism.
 
 Error counts must equal ops/fano.fano_decode_soft/_hard run on the
 identical frames (rebuilt host-side via the same coordinate-hash stages,
-ops/fano_mc.fano_frames_host).  The timeout-rich case exercises the full
-machine: search, backtrack, threshold relax/tighten, timeout exhaustion,
-the ignore latch, banking and in-kernel refill across frame boundaries.
+ops/mc_datagen.frames_host).  The timeout-rich case exercises the full
+walk: search, backtrack, threshold relax/tighten, timeout exhaustion, the
+ignore latch, and a thread moving on to its next frame.
 """
 
 import numpy as np
@@ -12,10 +14,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from convolutional_codes_tpu.models.codebook import get_code
-from convolutional_codes_tpu.ops.channels import awgn_sigma
-from convolutional_codes_tpu.ops.fano import fano_decode_soft, fano_decode_hard
-from convolutional_codes_tpu.ops.fano_mc import mc_fano, fano_frames_host
+from convolutional_codes.models.codebook import get_code
+from convolutional_codes.ops.channels import awgn_sigma
+from convolutional_codes.ops.fano import fano_decode_soft, fano_decode_hard
+from convolutional_codes.ops.mc_datagen import frames_host as fano_frames_host
+from convolutional_codes.ops.sequential_mc import mc_fano
 
 CASES = [
     # (code, channel, param, demapper, timeout_per_bit, frames_per_lane)
@@ -34,8 +37,7 @@ def test_counts_match_xla_machine(ck, channel, param, dem, tpb, fpl):
     code = get_code(ck)
     lanes = 64
     be, fe, nb = mc_fano(code, lanes, fpl, 42, param, channel=channel,
-                         demapper=dem, timeout_per_bit=tpb,
-                         block_lanes=64, interpret=True)
+                         demapper=dem, timeout_per_bit=tpb)
     bits, syms = fano_frames_host(code, np.arange(lanes * fpl), 42, param,
                                   channel, dem)
     if channel == "awgn":
@@ -49,14 +51,12 @@ def test_counts_match_xla_machine(ck, channel, param, dem, tpb, fpl):
 
 
 def test_16qam_counts_match_xla_machine():
-    """K=15 + 16-QAM (T*M = 3424): the sweep routes this code through
-    mc_fano since round 4 — the largest node/symbol planes any production
+    """K=15 + 16-QAM (T*M = 3424): the largest frame any production
     config puts in the kernel.  Cliff-region noise so real errors flow."""
     code = get_code("k15-r14-16qam")
     param = float(awgn_sigma(5.0))
     be, fe, nb = mc_fano(code, 16, 1, 42, param, channel="awgn",
-                         demapper="soft", timeout_per_bit=50,
-                         block_lanes=16, interpret=True)
+                         demapper="soft", timeout_per_bit=50)
     bits, syms = fano_frames_host(code, np.arange(16), 42, param,
                                   "awgn", "soft")
     dec = fano_decode_soft(code, jnp.asarray(syms), 50)
@@ -67,8 +67,7 @@ def test_16qam_counts_match_xla_machine():
 
 def test_deterministic_and_seed_sensitive():
     code = get_code(0)
-    kw = dict(channel="awgn", timeout_per_bit=30, block_lanes=64,
-              interpret=True)
+    kw = dict(channel="awgn", timeout_per_bit=30)
     param = float(awgn_sigma(4.0))
     a = mc_fano(code, 64, 1, 7, param, **kw)
     b = mc_fano(code, 64, 1, 7, param, **kw)

@@ -2,10 +2,10 @@
 
 The kernel decodes overlapping windows of per-lane coded streams; its
 error counts must equal a monolithic XLA Viterbi decode of the *identical*
-stream (rebuilt via ops.fused_longframe.stream_segment_host — same
+stream (rebuilt via ops.viterbi_mc.stream_segment_host — same
 coordinate-hash RNG, same float expressions).  The coordinate-hash RNG is
-additionally checked distributionally (it replaces the hardware PRNG:
-halo consistency needs position-addressable draws).
+additionally checked distributionally (halo consistency needs
+position-addressable draws).
 """
 
 import numpy as np
@@ -14,12 +14,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from convolutional_codes_tpu.models.codebook import get_code
-from convolutional_codes_tpu.models.trellis import build_trellis
-from convolutional_codes_tpu.ops.channels import awgn_sigma
-from convolutional_codes_tpu.ops.viterbi import acs_forward, traceback_from
-from convolutional_codes_tpu.ops.fused_longframe import (
-    coord_bits, coord_uniform, mc_longframe_viterbi, stream_segment_host)
+from convolutional_codes.models.codebook import get_code
+from convolutional_codes.models.trellis import build_trellis
+from convolutional_codes.ops.channels import awgn_sigma
+from convolutional_codes.ops.viterbi import acs_forward, traceback_from
+from convolutional_codes.ops.coord_hash import coord_bits, coord_uniform
+from convolutional_codes.ops.viterbi_mc import (
+    mc_longframe_viterbi, stream_segment_host)
 
 
 def monolithic_counts(code, lane_ids, seed, param, channel, W, Wn, nsteps,
@@ -47,7 +48,7 @@ CASES = [
     ("k3-75", "awgn", float(awgn_sigma(4.0)), "soft"),
     ("k3-75", "awgn", float(awgn_sigma(4.0)), "hard"),
     ("nasa-k7", "awgn", float(awgn_sigma(3.0)), "soft"),
-    ("k9-r12", "awgn", float(awgn_sigma(1.5)), "soft"),  # S=256 MXU path
+    ("nasa-k7", "bsc", 0.03, "soft"),      # S=64, two decision words
 ]
 
 

@@ -15,11 +15,11 @@ import numpy as np
 import pytest
 
 import tests.golden_model as gm
-from convolutional_codes_tpu.models.codebook import Code
-from convolutional_codes_tpu.ops.encoder import encode
-from convolutional_codes_tpu.ops.fano import fano_decode_hard, fano_decode_soft
-from convolutional_codes_tpu.ops.stack import stack_decode_hard, stack_decode_soft
-from convolutional_codes_tpu.ops.viterbi import (
+from convolutional_codes.models.codebook import Code
+from convolutional_codes.ops.encoder import encode
+from convolutional_codes.ops.fano import fano_decode_hard, fano_decode_soft
+from convolutional_codes.ops.stack import stack_decode_hard, stack_decode_soft
+from convolutional_codes.ops.viterbi import (
     viterbi_decode_hard, viterbi_decode_soft)
 
 import jax.numpy as jnp
@@ -126,23 +126,19 @@ def test_random_bigK_sequential_matches_golden_model(seed):
 
 
 def test_random_code_pallas_kernels_match_golden_model():
-    """One random runtime-registered code through the interpret-mode Pallas
-    sequential kernels (the production TPU path) — the kernel machinery
-    (tables, packing, lockstep masks) must be as code-agnostic as the XLA
-    formulations the other fuzz cases pin."""
-    from convolutional_codes_tpu.ops.fano_pallas import fano_decode_pallas
-    from convolutional_codes_tpu.ops.stack_pallas import stack_decode_pallas
+    """One random runtime-registered code through the one-frame-per-thread
+    sequential kernel (native/seq_decode.cu, built for the CPU) — its walks
+    must be as code-agnostic as the XLA formulations the other fuzz cases
+    pin."""
+    from convolutional_codes.ops.sequential_mc import sequential_decode
 
     rng = np.random.default_rng(77)
     code = _random_code(rng, 77)
     frames = 4
     bits, hard_rx, dists = _noisy_streams(code, rng, frames)
-    kw = dict(interpret=True, iters_per_call=65536, iters_first=8192)
 
-    s_s = np.asarray(stack_decode_pallas(code, jnp.asarray(dists),
-                                         soft=True, **kw))
-    f_h = np.asarray(fano_decode_pallas(code, jnp.asarray(hard_rx),
-                                        soft=False, **kw))
+    s_s = np.asarray(sequential_decode("stack", code, jnp.asarray(dists)))
+    f_h = np.asarray(sequential_decode("fano", code, jnp.asarray(hard_rx)))
     for i in range(frames):
         assert np.array_equal(s_s[i], gm.stack_soft(code, dists[i])), i
         assert np.array_equal(f_h[i], gm.fano_hard(code, hard_rx[i])), i

@@ -1,14 +1,13 @@
 """Direct validation of the coordinate-hash MC datagen (ops/mc_datagen).
 
-The sequential MC kernels' production frames come from make_datagen, which
+The sequential kernel's Monte-Carlo frames come from make_datagen, which
 rebuilds the encoder shift register via shifted bit-plane views instead of
-calling ops/encoder — and until round 4 it was only ever checked against a
-host replica built from the SAME expressions.  These tests pin the datagen
-against the independent stage implementations:
+calling ops/encoder.  These tests pin the datagen against the independent
+stage implementations:
 
   * encoder equality (exact, all six reference codes incl. WSPR K=32 where
-    ``bplane << (K-1)`` hits the uint32 edge and the compat quirk masks P1,
-    and both kernel/host layouts) — reference common/encoder.c:84-115;
+    ``bplane << (K-1)`` hits the uint32 edge and the compat quirk masks P1)
+    — reference common/encoder.c:84-115;
   * BSC flip semantics at the deterministic extremes and the flip rate —
     binary-symmetric-channel/main.c:61-68;
   * AWGN zero-noise soft/hard demapper equality vs ops/demapper —
@@ -25,45 +24,34 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from convolutional_codes_tpu.models.codebook import get_code
-from convolutional_codes_tpu.models.constellations import get_constellation
-from convolutional_codes_tpu.ops.channels import awgn, awgn_sigma
-from convolutional_codes_tpu.ops.demapper import hard_demap, soft_demap
-from convolutional_codes_tpu.ops.encoder import encode
-from convolutional_codes_tpu.ops.mapper import map_symbols
-from convolutional_codes_tpu.ops.mc_datagen import frames_host, make_datagen
-from convolutional_codes_tpu.ops.viterbi import viterbi_decode_soft
+from convolutional_codes.models.codebook import get_code
+from convolutional_codes.models.constellations import get_constellation
+from convolutional_codes.ops.channels import awgn, awgn_sigma
+from convolutional_codes.ops.demapper import hard_demap, soft_demap
+from convolutional_codes.ops.encoder import encode
+from convolutional_codes.ops.mapper import map_symbols
+from convolutional_codes.ops.mc_datagen import frames_host, make_datagen
+from convolutional_codes.ops.viterbi import viterbi_decode_soft
 
 GIDS = np.array([0, 1, 2, 7, 63, 100, 12345, 2**20 + 17], np.int64)
 
 
-def _gen(code, channel, demapper, gids, seed, param, taxis):
+def _gen(code, channel, demapper, gids, seed, param):
     T = code.num_block_symbols
     gen = make_datagen(code, T, code.block_length, channel, demapper)
-    g = jnp.asarray(gids, jnp.int32)
-    t = jnp.arange(T)
-    if taxis == 0:        # kernel layout: [T, B] planes
-        bits, syms = gen(g[None, :], t[:, None], jnp.uint32(seed),
-                         jnp.float32(param), taxis=0, stack_axis=1)
-        bits = np.asarray(bits).T
-        syms = np.asarray(syms)
-        syms = (np.moveaxis(syms, (0, 1, 2), (1, 2, 0))
-                if syms.ndim == 3 else syms.T)
-    else:                 # host layout: [B, T]
-        bits, syms = gen(g[:, None], t[None, :], jnp.uint32(seed),
-                         jnp.float32(param), taxis=1, stack_axis=-1)
-        bits, syms = np.asarray(bits), np.asarray(syms)
-    return bits, syms
+    g = jnp.asarray(gids, jnp.int32)[:, None]
+    bits, syms = gen(g, jnp.arange(T)[None, :], jnp.uint32(seed),
+                     jnp.float32(param))
+    return np.asarray(bits), np.asarray(syms)
 
 
 @pytest.mark.parametrize("ck", [0, 1, 2, 3, 4, 5])
-@pytest.mark.parametrize("taxis", [0, 1])
-def test_bsc_zero_noise_equals_encoder(ck, taxis):
+def test_bsc_zero_noise_equals_encoder(ck):
     """param=0: datagen symbols must EXACTLY equal ops/encoder.encode of
     the datagen bits — the independent tap-matmul encoder, incl. the
     compat-parity quirk codes (1-4) and WSPR's K=32 register."""
     code = get_code(ck)
-    bits, syms = _gen(code, "bsc", "soft", GIDS, 42, 0.0, taxis)
+    bits, syms = _gen(code, "bsc", "soft", GIDS, 42, 0.0)
     ref = np.asarray(encode(code, jnp.asarray(bits[:, :code.block_length])))
     assert np.array_equal(syms, ref)
     # bits must actually vary (the hash is not degenerate)
@@ -76,12 +64,12 @@ def test_bsc_full_flip_and_rate(ck):
     rate (binary-symmetric-channel/main.c:61-68 per-bit independence)."""
     code = get_code(ck)
     m = code.symlen_out
-    bits, syms = _gen(code, "bsc", "soft", GIDS, 7, 1.0, 1)
+    bits, syms = _gen(code, "bsc", "soft", GIDS, 7, 1.0)
     ref = np.asarray(encode(code, jnp.asarray(bits[:, :code.block_length])))
     assert np.array_equal(syms, ref ^ ((1 << m) - 1))
 
     gids = np.arange(4096)
-    bits, syms = _gen(code, "bsc", "soft", gids, 7, 0.25, 1)
+    bits, syms = _gen(code, "bsc", "soft", gids, 7, 0.25)
     ref = np.asarray(encode(code, jnp.asarray(bits[:, :code.block_length])))
     xor = syms ^ ref
     flips = sum(((xor >> k) & 1).sum() for k in range(m))
@@ -96,17 +84,13 @@ def test_awgn_zero_noise_equals_demapper(ck, dem):
     """param=0: the datagen distance planes must equal ops/demapper applied
     to the mapped ops/encoder symbols (QPSK, 8-QAM, 16-QAM tables)."""
     code = get_code(ck)
-    bits, syms = _gen(code, "awgn", dem, GIDS, 11, 0.0, 1)
+    bits, syms = _gen(code, "awgn", dem, GIDS, 11, 0.0)
     tx = map_symbols(code, encode(code, jnp.asarray(bits[:, :code.block_length])))
     demapf = soft_demap if dem == "soft" else hard_demap
     ref = np.asarray(demapf(code.symlen_out, tx))
     # datagen multiplies by 1/ndist where ops/demapper divides by ndist —
     # equal up to an ulp when ndist is not a power of two (8-QAM, 16-QAM)
     np.testing.assert_allclose(syms, ref, rtol=3e-7, atol=0)
-    # and the kernel layout computes the same planes
-    bits0, syms0 = _gen(code, "awgn", dem, GIDS, 11, 0.0, 0)
-    assert np.array_equal(bits0, bits)
-    np.testing.assert_allclose(syms0, syms, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("ck", [0, 5, "k15-r14-16qam"])
@@ -120,8 +104,8 @@ def test_awgn_hard_is_snap_of_soft(ck):
     m = code.symlen_out
     gids = np.arange(512)
     sigma = float(awgn_sigma(5.0))
-    _, soft_d = _gen(code, "awgn", "soft", gids, 3, sigma, 1)
-    _, hard_d = _gen(code, "awgn", "hard", gids, 3, sigma, 1)
+    _, soft_d = _gen(code, "awgn", "soft", gids, 3, sigma)
+    _, hard_d = _gen(code, "awgn", "hard", gids, 3, sigma)
     # distance-table rows via ops/demapper on the constellation itself
     pts = jnp.asarray(get_constellation(m))
     table = np.asarray(soft_demap(m, pts))          # [2^m, 2^m]

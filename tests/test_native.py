@@ -6,10 +6,10 @@ import numpy as np
 import pytest
 
 from conftest import load_golden
-from convolutional_codes_tpu.models.codebook import get_code
-from convolutional_codes_tpu.ops.encoder import encode
-from convolutional_codes_tpu.ops.viterbi import viterbi_decode_soft, viterbi_decode_hard
-from convolutional_codes_tpu.utils import native
+from convolutional_codes.models.codebook import get_code
+from convolutional_codes.ops.encoder import encode
+from convolutional_codes.ops.viterbi import viterbi_decode_soft, viterbi_decode_hard
+from convolutional_codes.utils import native
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="no C compiler / native lib")
@@ -90,9 +90,9 @@ def test_fuzz_sequential_jax_vs_native(idx):
     beyond the pinned golden corpus, feasible because the oracle is C
     (tests/golden_model.py is the spec the oracle was validated against)."""
     import jax.numpy as jnp
-    from convolutional_codes_tpu.ops.fano import fano_decode_soft, fano_decode_hard
-    from convolutional_codes_tpu.ops.stack import stack_decode_soft, stack_decode_hard
-    from convolutional_codes_tpu.models.constellations import get_constellation
+    from convolutional_codes.ops.fano import fano_decode_soft, fano_decode_hard
+    from convolutional_codes.ops.stack import stack_decode_soft, stack_decode_hard
+    from convolutional_codes.models.constellations import get_constellation
 
     code = get_code(idx)
     rng = np.random.default_rng(zlib.crc32(f"seqfuzz-{idx}".encode()))

@@ -4,9 +4,9 @@ import numpy as np
 import pytest
 
 from conftest import load_golden
-from convolutional_codes_tpu.models.codebook import get_code
-from convolutional_codes_tpu.ops.encoder import encode
-from convolutional_codes_tpu.ops.stack import stack_decode_soft, stack_decode_hard
+from convolutional_codes.models.codebook import get_code
+from convolutional_codes.ops.encoder import encode
+from convolutional_codes.ops.stack import stack_decode_soft, stack_decode_hard
 
 ALL_CODES = [0, 1, 2, 3, 4, 5]
 
@@ -48,7 +48,7 @@ def test_hard_metric_matches_golden_model():
     """The winning path metric mirrors what the reference's BSC callback
     carries (binary-symmetric-channel/include/decoder.h:9)."""
     import golden_model as gm
-    from convolutional_codes_tpu.ops.stack import stack_decode_hard_with_metric
+    from convolutional_codes.ops.stack import stack_decode_hard_with_metric
 
     code = get_code(0)
     rng = np.random.default_rng(13)

@@ -1,4 +1,5 @@
-"""Fused stack MC kernel (in-kernel lane refill): exactness + determinism.
+"""Stack Monte-Carlo through the one-frame-per-thread kernel
+(ops/sequential_mc, built for the CPU): exactness + determinism.
 
 Error counts must equal ops/stack.stack_decode_soft/_hard on the identical
 hash-generated frames (ops/mc_datagen.frames_host)."""
@@ -8,10 +9,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from convolutional_codes_tpu.models.codebook import get_code
-from convolutional_codes_tpu.ops.channels import awgn_sigma
-from convolutional_codes_tpu.ops.stack import stack_decode_soft, stack_decode_hard
-from convolutional_codes_tpu.ops.stack_mc import mc_stack, stack_frames_host
+from convolutional_codes.models.codebook import get_code
+from convolutional_codes.ops.channels import awgn_sigma
+from convolutional_codes.ops.stack import stack_decode_soft, stack_decode_hard
+from convolutional_codes.ops.mc_datagen import frames_host as stack_frames_host
+from convolutional_codes.ops.sequential_mc import mc_stack
 
 CASES = [
     # (code, channel, param, demapper, frames_per_lane)
@@ -29,7 +31,7 @@ def test_counts_match_xla_machine(ck, channel, param, dem, fpl):
     code = get_code(ck)
     lanes = 64
     be, fe, nb = mc_stack(code, lanes, fpl, 42, param, channel=channel,
-                          demapper=dem, block_lanes=64, interpret=True)
+                          demapper=dem)
     bits, syms = stack_frames_host(code, np.arange(lanes * fpl), 42, param,
                                    channel, dem)
     if channel == "awgn":
@@ -44,7 +46,7 @@ def test_counts_match_xla_machine(ck, channel, param, dem, fpl):
 
 def test_deterministic_and_seed_sensitive():
     code = get_code(0)
-    kw = dict(channel="bsc", block_lanes=64, interpret=True)
+    kw = dict(channel="bsc")
     a = mc_stack(code, 64, 1, 7, 0.05, **kw)
     b = mc_stack(code, 64, 1, 7, 0.05, **kw)
     c = mc_stack(code, 64, 1, 8, 0.05, **kw)

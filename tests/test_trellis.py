@@ -4,8 +4,8 @@ import numpy as np
 import pytest
 
 import golden_model as gm
-from convolutional_codes_tpu.models.codebook import get_code, list_codes, Code
-from convolutional_codes_tpu.models.trellis import (
+from convolutional_codes.models.codebook import get_code, list_codes, Code
+from convolutional_codes.models.trellis import (
     build_trellis, expected_symbols, next_states, quirk_mask_low,
     effective_parity_u64, parity_u64)
 
@@ -76,9 +76,9 @@ def test_user_defined_code_end_to_end():
     """User extension flow (reference Readme.md:19): register a custom code
     and run the full encode → decode round trip."""
     import jax.numpy as jnp
-    from convolutional_codes_tpu.models.codebook import register_code
-    from convolutional_codes_tpu.ops.encoder import encode
-    from convolutional_codes_tpu.ops.viterbi import viterbi_decode_hard
+    from convolutional_codes.models.codebook import register_code
+    from convolutional_codes.ops.encoder import encode
+    from convolutional_codes.ops.viterbi import viterbi_decode_hard
 
     custom = Code(name="custom-k4", symlen_out=2, constraint_length=4,
                   block_length=24, polynomials=(0o15, 0o17), parity="true")

@@ -4,9 +4,9 @@ import numpy as np
 import pytest
 
 from conftest import load_golden
-from convolutional_codes_tpu.models.codebook import get_code
-from convolutional_codes_tpu.ops.encoder import encode
-from convolutional_codes_tpu.ops.viterbi import (
+from convolutional_codes.models.codebook import get_code
+from convolutional_codes.ops.encoder import encode
+from convolutional_codes.ops.viterbi import (
     viterbi_decode_soft, viterbi_decode_hard, hard_branch_metrics)
 
 VITERBI_CODES = [0, 1, 2, 3, 5]

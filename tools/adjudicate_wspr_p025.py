@@ -8,7 +8,7 @@ cluster-corrected two-sample z (bit errors arrive in per-frame bursts,
 same model as tools/reproduce_curves.py).
 
 The clean C counts are passed in via --clean "bits:be:fe" (repeatable,
-one per independent seed run); the hash side runs here on the TPU.
+one per independent seed run); the hash side runs here on the GPU.
 
 Writes results/adjudication_wspr_stack_p025.json.
 """
@@ -23,8 +23,10 @@ import time
 REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-from convolutional_codes_tpu.models.codebook import get_code  # noqa: E402
-from convolutional_codes_tpu.ops.stack_mc import mc_stack     # noqa: E402
+from convolutional_codes.models.codebook import get_code  # noqa: E402
+from convolutional_codes.ops.sequential_mc import mc_stack     # noqa: E402
+from convolutional_codes.utils.compile_cache import (  # noqa: E402
+    enable_compile_cache)
 
 P = 0.025
 
@@ -40,6 +42,7 @@ def main():
     ap.add_argument("--fpl", type=int, default=200)
     args = ap.parse_args()
 
+    enable_compile_cache()
     code = get_code(4)
     runs = []
     for seed in args.seeds:

@@ -5,8 +5,8 @@ Compiles tools/golden_harness/harness_ber_awgn_ext.c against the read-only
 reference (-O3, the reference's own optimization level, one core) and times
 the full C chain (encoder → mapper → gengauss AWGN → soft demapper →
 stack/fano decoder) at the SNRs bench.py measures, for the SAME codes —
-including the framework-extension codes the round-3 bench rows wrongly
-normalized by the K=3 core's rate (VERDICT round 3, missing item 4).
+including the framework-extension codes, which must not be normalized by
+the K=3 core's rate.
 
 Writes results/reference_fresh_awgn_ext.json.
 """

@@ -21,10 +21,11 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 from tools.reproduce_curves import (  # noqa: E402
-    CONFIGS, GOLD, RESULTS, Z_THRESHOLD, aggregate_bits_per_s, compare)
-from convolutional_codes_tpu.sim.sweep import (  # noqa: E402
+    CONFIGS, GOLD, RESULTS, Z_THRESHOLD, _rate, aggregate_bits_per_s,
+    compare)
+from convolutional_codes.sim.sweep import (  # noqa: E402
     PointRecord, awgn_tier_bits, bsc_tier_bits)
-from convolutional_codes_tpu.utils.records import read_jsonl  # noqa: E402
+from convolutional_codes.utils.records import read_jsonl  # noqa: E402
 
 
 def load(name):
@@ -59,7 +60,7 @@ def main():
             worst = float("nan")
         else:
             _, worst = compare(records, channel, row)
-        agg = aggregate_bits_per_s(records)
+        agg = _rate(aggregate_bits_per_s(records))
         rows.append((name, channel, f"{len(records)}/{len(grid)}",
                      scale_of(records, channel), worst, agg))
 
@@ -71,7 +72,7 @@ def main():
                 print(f"| {name} | — | — | — | — |")
             else:
                 print(f"| {name} | {grid} | {scale:.2g} | {worst:.2f} "
-                      f"| {agg:.2e} |")
+                      f"| {agg} |")
         return
 
     import math
@@ -88,7 +89,7 @@ def main():
                 flag = "OK " if worst < Z_THRESHOLD and scale >= 0.99 else (
                     "PART" if worst < Z_THRESHOLD else "WARN")
             print(f"{flag:4} {name:26s} grid={grid:6} scale={scale:8.2g} "
-                  f"worst|z|={worst:6.2f} {agg:.3e} bits/s")
+                  f"worst|z|={worst:6.2f} {agg}")
 
 
 if __name__ == "__main__":

@@ -29,7 +29,7 @@ sys.path.insert(0, str(REPO))
 sys.path.insert(0, str(REPO / "tests"))
 
 import golden_model as gm  # noqa: E402
-from convolutional_codes_tpu.models.codebook import get_code  # noqa: E402
+from convolutional_codes.models.codebook import get_code  # noqa: E402
 
 NBLOCKS = 30
 NBLOCKS_FANO_RANDOM = 3  # timeout path is slow in the python golden model

@@ -6,7 +6,7 @@
  *
  * The reference decoders are generic over struct code_param
  * (common/include/code.h:9-19), so this driver feeds them extension
- * parameters mirroring convolutional_codes_tpu/models/codebook.py
+ * parameters mirroring convolutional_codes/models/codebook.py
  * (polynomials MSB-aligned like codebook.c:14-56; the tuned soft metric
  * weights are the framework's).  The reference ships no 16-point
  * constellation (constellations.c stops at 3 bits), so this file provides

@@ -35,9 +35,9 @@ import matplotlib.pyplot as plt
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 from tools.reproduce_curves import CONFIGS, GOLD, RESULTS  # noqa: E402
-from convolutional_codes_tpu.sim.sweep import (  # noqa: E402
+from convolutional_codes.sim.sweep import (  # noqa: E402
     AWGN_SNR_GRID, BSC_CROSSOVER_GRID)
-from convolutional_codes_tpu.utils.records import read_jsonl  # noqa: E402
+from convolutional_codes.utils.records import read_jsonl  # noqa: E402
 
 PLOTS = RESULTS / "plots"
 
@@ -77,7 +77,7 @@ def _plot_16qam_extension(figures):
     missing = [p.name for p in (fano, unc) if not p.exists()]
     if missing:
         # loud, not silent: every published config must have its grid
-        # committed (round-3 verdict: this skip hid a missing flagship file)
+        # committed (a silent skip once hid a missing flagship file)
         raise FileNotFoundError(
             f"16-QAM extension grids missing from results/: {missing}")
     fig, ax = plt.subplots(figsize=(7.2, 5.4), dpi=150)
@@ -89,7 +89,7 @@ def _plot_16qam_extension(figures):
                 "-o", color=CODE_COLOR[1], linewidth=1.6, markersize=4.5,
                 label="uncoded 16-QAM", zorder=3)
         a = 1.0 / math.sqrt(10.0)
-        from convolutional_codes_tpu.ops.channels import awgn_sigma
+        from convolutional_codes.ops.channels import awgn_sigma
 
         def qf(x):
             return 0.5 * math.erfc(x / math.sqrt(2.0))
